@@ -27,7 +27,8 @@ args = parser.parse_args()
 
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
-_ = jax.devices()
+_dev = jax.devices()[0]
+print(f"device: {_dev.platform} ({_dev.device_kind})", flush=True)
 
 import numpy as np  # noqa: E402
 

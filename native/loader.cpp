@@ -5,7 +5,7 @@
 // lock-free SPSC queue. This implementation generalizes it to N decoder
 // threads filling a bounded, *ordered* ring (frames are handed to the
 // consumer strictly in sequence, whatever order decodes finish), because a
-// TPU host wants several cores decoding while the device computes.
+// GPU host wants several cores decoding while the device computes.
 //
 // Layout contract (reference: async_image_loader.h:55-66): frames live at
 // <left_dir>/%06d.png and <right_dir>/%06d.png. Color PNGs are converted to

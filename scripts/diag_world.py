@@ -1,6 +1,6 @@
 """Per-frame diagnosis of a multi-world run: where does the error enter?
 
-Runs the TPU pipeline on a cached world (scripts/eval_worlds.py cache) and
+Runs the pipeline on a cached world (scripts/eval_worlds.py cache) and
 prints, per frame: rotation error vs GT (deg), translation error (m),
 per-frame RELATIVE pose error (the frame where drift is injected), tracked
 count, inlier ratio, live features, KF flag.
@@ -15,7 +15,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--world", default="box-turns")
@@ -32,10 +31,6 @@ parser.add_argument("--no-metrics", action="store_true")
 args = parser.parse_args()
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import numpy as np  # noqa: E402
 

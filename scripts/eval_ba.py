@@ -8,7 +8,7 @@ across the trajectory in consecutive spans, and reports ATE before/after
 plus BA solver throughput.
 
     python scripts/eval_ba.py --cpu --small --frames 121   # quick check
-    python scripts/eval_ba.py --frames 505                 # TPU, full size
+    python scripts/eval_ba.py --frames 505                 # on the GPU, full size
 """
 
 import argparse
@@ -17,7 +17,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--cpu", action="store_true")
@@ -31,7 +30,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 _ = jax.devices()

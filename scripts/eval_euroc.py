@@ -16,7 +16,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--root", default="")
@@ -28,9 +27,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 _ = jax.devices()

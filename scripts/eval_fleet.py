@@ -18,7 +18,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--kitti", default="", help="KITTI odometry root (dataset/)")
@@ -33,7 +32,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 _ = jax.devices()

@@ -2,7 +2,7 @@
 
 Every headline accuracy number so far came from ONE synthetic world (the
 3-plane corridor) and one forward+wobble trajectory — tuned constants risk
-being world-specific. This runs the TPU pipeline AND the
+being world-specific. This runs the device pipeline AND the
 reference-equivalent CPU pipeline over worlds varying texture scale,
 geometry (narrow corridor, open box with turns, loop), speed and rotation
 content, forward and reversed, and writes the per-world ATE table.
@@ -19,7 +19,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--cpu", action="store_true")
@@ -38,9 +37,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 _ = jax.devices()
@@ -190,7 +186,7 @@ for name in names:
             lsd, rsd, gtd = ls, rs, gt
         ate, fps = run_tpu(cfg, camera, lsd, rsd, gtd)
         row[f"tpu_ate_{direction}_m"] = round(float(ate), 4)
-        log(f"{name} {direction}: TPU ATE {ate:.3f} m ({fps:.0f} fps)")
+        log(f"{name} {direction}: device ATE {ate:.3f} m ({fps:.0f} fps)")
         if not args.skip_ref:
             ate_r, fps_r = run_ref(cfg, camera, lsd, rsd, gtd)
             row[f"ref_ate_{direction}_m"] = round(float(ate_r), 4)
@@ -223,4 +219,4 @@ if args.out:
     }
     with open(args.out, "w") as f:
         json.dump(out, f, indent=1)
-    log(f"wrote {args.out} ({wins}/{total} TPU wins)")
+    log(f"wrote {args.out} ({wins}/{total} device-pipeline wins)")

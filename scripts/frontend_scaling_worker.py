@@ -5,7 +5,7 @@ Strong scaling of the data-parallel multi-sequence frontend
 process (2 virtual CPU devices, 1 pinned core) or on two processes (1
 device + 1 pinned core each, jax.distributed over localhost). Per frame
 step the only cross-process traffic is the fleet-health psum — the same
-program a TPU pod slice runs per-stream-per-chip over ICI.
+program a multi-GPU host runs per-stream-per-card over NVLink.
 
     python scripts/frontend_scaling_worker.py --rank 0 --nprocs 2 \
         --port 19788 --out /tmp/fscale_0.json
@@ -18,7 +18,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--rank", type=int, required=True)

@@ -1,7 +1,7 @@
 """Per-stage microbenchmarks on the current JAX backend.
 
 Times each pipeline stage in isolation (warm, block_until_ready) to locate
-the hot spots. Run on TPU (default) or --cpu.
+the hot spots. Run on the accelerator (default) or --cpu.
 """
 
 import argparse

@@ -2,8 +2,8 @@
 
 Each process owns half of an 8-shard BA problem (4 virtual CPU devices per
 process); the global mesh spans both processes and the Schur-reduced camera
-system psum crosses the process boundary — the same program a multi-host TPU
-pod slice runs (SURVEY.md §4: "jax.distributed multi-process on localhost,
+system psum crosses the process boundary — the same program a multi-host GPU
+cluster runs (SURVEY.md §4: "jax.distributed multi-process on localhost,
 asserting distributed BA matches the single-host solution").
 
     python scripts/multihost_ba_worker.py --rank R --nprocs 2 \

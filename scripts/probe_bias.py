@@ -7,7 +7,7 @@ depth (and hence GT temporal flow and GT disparity) has a closed form.
 This probe renders consecutive frames, runs the real trackers, and reports
 flow / disparity error statistics split by image region.
 
-    python scripts/probe_bias.py             # TPU
+    python scripts/probe_bias.py             # accelerator
     python scripts/probe_bias.py --cpu
 """
 
@@ -16,7 +16,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--cpu", action="store_true")
@@ -34,7 +33,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 _ = jax.devices()

@@ -18,7 +18,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--cpu", action="store_true")
@@ -26,7 +25,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 _ = jax.devices()

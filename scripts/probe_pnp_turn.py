@@ -11,7 +11,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--world", default="box-turns")
@@ -19,10 +18,6 @@ parser.add_argument("--upto", type=int, default=90)
 args = parser.parse_args()
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

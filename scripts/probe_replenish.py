@@ -8,7 +8,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--world", default="box-fine-fast")
@@ -17,8 +16,6 @@ parser.add_argument("--b", type=int, default=128)
 args = parser.parse_args()
 
 import jax
-
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 
 import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

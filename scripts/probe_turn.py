@@ -2,7 +2,7 @@
 
 Detects features on frame A, tracks to frame B with the pipeline's
 temporal-KLT config, and reports the status breakdown vs cv2 on the same
-pair. Run on TPU (default) or CPU (--cpu).
+pair. Run on the accelerator (default) or CPU (--cpu).
 """
 
 import argparse
@@ -10,7 +10,6 @@ import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 parser = argparse.ArgumentParser()
 parser.add_argument("--world", default="box-turns")
@@ -21,7 +20,6 @@ args = parser.parse_args()
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jaxcache")
 if args.cpu:
     jax.config.update("jax_platforms", "cpu")
 

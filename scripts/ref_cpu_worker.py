@@ -1,10 +1,12 @@
 """Standalone reference-CPU pipeline worker for bench.py's matched-aggregate
 measurement.
 
-Runs in a FRESH interpreter (bench.py cannot fork: the TPU client's threads
-make fork unsafe, and spawn would re-import jax per child): loads the u8
-frame stack from an .npz, runs the OpenCV reference-equivalent pipeline
-once, prints "<n_frames> <wall_seconds>". Imports no jax.
+Runs in a FRESH interpreter (bench.py cannot fork: the device client's
+threads make fork unsafe): loads the u8 frame stack from an .npz, runs the
+OpenCV reference-equivalent pipeline once, prints
+"<n_frames> <wall_seconds>". It computes nothing with jax; bench.py starts
+it with JAX_PLATFORMS=cpu so that the package import never opens the
+accelerator.
 """
 
 import sys

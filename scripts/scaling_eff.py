@@ -12,11 +12,10 @@ Method (documented in the output artifact):
 
 Each process is pinned to ONE core so the measurement isolates the
 distributed program's scaling (compute split + psum of the Schur camera
-system) from host-level core contention — the same program structure a TPU
-pod slice runs, where the collectives ride ICI instead of localhost gRPC.
-This measures the framework's scaling overhead honestly on the hardware
-available; absolute rates are CPU rates, not TPU rates (the single-chip BA
-rate is in BENCH_r*.json as ba_iterations_per_s).
+system) from host-level core contention — the same program structure a multi-GPU
+host runs, where the collectives ride NVLink instead of localhost gRPC.
+This measures the framework's scaling overhead on CPU processes; absolute
+rates are CPU rates, not device rates.
 
     python scripts/scaling_eff.py --out SCALING_r03.json
 """
@@ -95,8 +94,8 @@ def measure(cams: int, pts: int, reps: int) -> dict:
 
 
 # Size sweep: the small point is a sliding WINDOW BA problem (latency
-# sensitive, comm-dominated on localhost gRPC — on a TPU pod the same 20KB
-# psum rides ICI at ~us latency); the large points are GLOBAL-map BA blocks,
+# sensitive, comm-dominated on localhost gRPC — between GPUs the same 20KB
+# psum rides NVLink); the large points are GLOBAL-map BA blocks,
 # the workload multi-host partitioning exists for (a full KITTI sequence
 # allocates ~50k+ points). The headline efficiency is the largest size.
 SWEEP = [(12, 4096, 6), (16, 16384, 4), (16, 32768, 3)]

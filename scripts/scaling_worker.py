@@ -5,7 +5,7 @@ problem is partitioned into `nprocs` point blocks (one virtual CPU device
 per process, pinned to one core by the driver), and each process times the
 same jitted shard_map program over its shard — per LM iteration the only
 cross-process traffic is the psum of the Schur-reduced camera system, the
-identical program a TPU pod slice runs over ICI/DCN (SURVEY.md §2.3).
+identical program a multi-GPU host runs over NVLink (SURVEY.md §2.3).
 
     python scripts/scaling_worker.py --rank 0 --nprocs 2 --port 19777 \
         --out /tmp/scale_0.json

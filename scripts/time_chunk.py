@@ -2,7 +2,6 @@
 optionally comparing trajectories against a second engine variant.
 
     python scripts/time_chunk.py --streams 8 --chunk 12 --cadence 6
-    SVO_TPU_NESTED_SCAN=1 python scripts/time_chunk.py ...
 """
 
 import argparse
@@ -57,7 +56,7 @@ else:
     data.update({f"r{i}": r for i, _, r in frames})
     np.savez(CACHE, gt=seq.gt_poses, baseline=seq.baseline, K=seq.K, **data)
     baseline, K, gt = float(seq.baseline), seq.K, seq.gt_poses
-log(f"{N} frames ready (nested={bool(os.environ.get('SVO_TPU_NESTED_SCAN'))})")
+log(f"{N} frames ready")
 
 cfg = Config(use_orb=False, image_height=SHAPE[0], image_width=SHAPE[1])
 camera = cam_mod.from_intrinsics(K[0, 0], K[1, 1], K[0, 2], K[1, 2], baseline)

@@ -2,7 +2,7 @@
 
 The reference links Ceres but never calls it — its back-end optimization
 thread is an empty TODO loop (reference: src/map.cpp:84-88, CMakeLists.txt:23).
-This module is that missing capability, built TPU-first:
+This module is that missing capability, built for batched device execution:
 
 - The problem is a fixed-shape COO observation table (obs -> camera slot,
   point slot, pixel measurement, validity mask). Variable counts are masks.
@@ -10,7 +10,7 @@ This module is that missing capability, built TPU-first:
 - Point marginalization (the Schur trick) is segment-sums keyed by point and
   by (camera, point): H_pp and the W_cp cross blocks accumulate with
   scatter-adds; the reduced camera system assembles as one dense einsum over
-  point slots — MXU work, not sparse pointer chasing.
+  point slots — dense arithmetic, not sparse pointer chasing.
 - The reduced (6K x 6K) camera system is solved dense via Cholesky (the
   window is small); LM damping with accept/reject runs as a lax.scan.
 - Stereo-aware residuals: an observation optionally carries the right-camera
@@ -157,7 +157,7 @@ def solve_ba(
     are REPLICATED. Point marginalization is local to each shard; the reduced
     camera system and the robust cost are the only cross-shard quantities and
     are combined with psum (one (K,K,6,6) + one (K,6) + one scalar per LM
-    iteration riding ICI). The camera solve is replicated; point
+    iteration riding the device interconnect). The camera solve is replicated; point
     back-substitution stays local. See svo_tpu/parallel/ba.py.
     """
     def _allreduce(x):

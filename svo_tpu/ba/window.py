@@ -6,7 +6,7 @@ Builds a fixed-shape BAProblem from the device-resident observation ring
 - observation rows are selected by frame id (the ring's overwrite semantics
   make old rows drop out naturally),
 - global point ids are remapped to dense window slots with a sort +
-  first-occurrence cumsum (a TPU-friendly 'unique'),
+  first-occurrence cumsum (a static-shape 'unique'),
 - after solve_ba, updated points scatter back into the global map and updated
   poses into the trajectory.
 

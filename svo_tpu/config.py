@@ -21,8 +21,6 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any
 
-import yaml
-
 
 @dataclass(frozen=True)
 class OrbParams:
@@ -128,15 +126,10 @@ class KltParams:
     # ~disparity/2^L px at the top level before the guess chain kicks in.
     margin_x: int = 6
     # Optional per-level iteration budgets, index = pyramid level (level 0
-    # first; missing entries reuse the last). Iterations are statically
-    # unrolled with a convergence mask, so a tighter budget shrinks the
-    # program. Default None = max_iters everywhere (cv2 semantics):
-    # measured on-chip, a (24,10,8,8) budget cut the lowered program ~13%
-    # with NO throughput change (the unrolled iterations fuse well; the
-    # dispatch floor lives elsewhere) while starving upper levels enough
-    # to break large-flow border rejection (features stopped short of the
-    # image edge instead of exiting and dying). Keep the knob, not the
-    # diet.
+    # first; missing entries reuse the last). Default None = max_iters
+    # everywhere (cv2 semantics): a (24,10,8,8) budget starved upper levels
+    # enough to break large-flow border rejection (features stopped short
+    # of the image edge instead of exiting and dying).
     level_iters: tuple | None = None
 
 
@@ -145,7 +138,7 @@ class RansacParams:
     """RANSAC-PnP knobs (reference: src/tracking.cpp:191-194).
 
     The reference uses cv::solvePnPRansac(iters=100, reproj=8.0, conf=0.999,
-    SOLVEPNP_SQPNP). TPU-native design replaces adaptive iterations with a
+    SOLVEPNP_SQPNP). This design replaces adaptive iterations with a
     fixed batch of parallel hypotheses (static shapes under jit)."""
 
     num_hypotheses: int = 128
@@ -223,7 +216,7 @@ class Capacity:
 @dataclass(frozen=True)
 class Config:
     """Full pipeline configuration. Field names/defaults follow the reference
-    Config struct (include/config_reader.h:13-44) plus TPU-native extensions."""
+    Config struct (include/config_reader.h:13-44) plus extensions."""
 
     # --- reference knobs (configs/config.yaml) ---
     path: str = ""
@@ -248,10 +241,9 @@ class Config:
     # 157-164): LK converges quadratically, cv2's eps exit typically fires
     # within ~5-10 updates, and with eager keyframing (fresh templates) the
     # extra budget only pays for features the fb-check kills anyway. The
-    # updates are statically unrolled on TPU, so the budget is also the
-    # exact per-level cost — and measured ATE is flat-to-better at 8 vs 12
-    # (surplus iterations let weak low-texture tracks wander before the
-    # convergence mask freezes them).
+    # budget is also the exact per-level cost, and measured ATE is
+    # flat-to-better at 8 vs 12 (surplus iterations let weak low-texture
+    # tracks wander before the convergence mask freezes them).
     stereo_klt: KltParams = field(
         default_factory=lambda: KltParams(
             window=11, max_level=3, max_iters=8, margin_x=16
@@ -262,7 +254,7 @@ class Config:
     )
     ransac: RansacParams = field(default_factory=RansacParams)
 
-    # --- TPU-native extensions ---
+    # --- extensions beyond the reference ---
     # "rectified": closed-form disparity triangulation (exact for rectified
     # rigs like KITTI, pure arithmetic). "dlt": 4x4 nullspace like
     # cv::triangulatePoints (reference parity; costs an eigensolve per point).
@@ -320,6 +312,8 @@ _KEY_ALIASES = {"tracking_params": "tracking"}
 def load_config(path: str) -> Config:
     """Load a YAML config. Accepts the reference's OpenCV ``%YAML:1.0`` files
     (reference: include/config_reader.h:47-87) and plain YAML."""
+    import yaml
+
     with open(path) as f:
         text = f.read()
     lines = [ln for ln in text.splitlines() if not ln.startswith("%YAML")]

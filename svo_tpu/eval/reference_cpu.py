@@ -8,8 +8,8 @@ ORB/FAST detect with rectangle mask (src/tracking.cpp:34-92), PyrLK stereo
 match with y-gate (src/tracking.cpp:94-118), cv2.triangulatePoints + z>0
 (src/tracking.cpp:120-152), PyrLK temporal tracking (src/tracking.cpp:154-179),
 solvePnPRansac(SQPNP) + inversion + outlier removal (src/tracking.cpp:181-230),
-and the keyframe policy (src/tracking.cpp:61-72). Not part of the TPU
-framework's compute path.
+and the keyframe policy (src/tracking.cpp:61-72). Not part of the
+framework's device compute path.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """RANSAC-PnP: batched-hypothesis robust 3D->2D pose estimation.
 
-TPU-native replacement for cv::solvePnPRansac(SQPNP) + cv::Rodrigues + pose
+Replacement for cv::solvePnPRansac(SQPNP) + cv::Rodrigues + pose
 inversion (reference: src/tracking.cpp:181-230). OpenCV's adaptive-iteration
 RANSAC (100 iters, 8 px, 0.999 confidence) becomes a fixed batch of parallel
 minimal-solver hypotheses (static shapes under jit):
@@ -47,9 +47,8 @@ def _dlt6(Xw: jnp.ndarray, xn: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Minimal 6-point DLT pose from world points (6,3) and normalized image
     points (6,2). Returns (R (3,3), t (3,)).
 
-    TPU note: the 12x12 null vector comes from fixed-count inverse iteration
-    and the SO(3) projection from a Newton polar iteration — XLA's eigh/svd
-    are serial Jacobi sweeps that dominate frame time on TPU
+    The 12x12 null vector comes from fixed-count inverse iteration and the
+    SO(3) projection from a Newton polar iteration, in place of eigh/svd
     (svo_tpu.ops.linalg)."""
     from svo_tpu.ops import linalg
 
@@ -121,15 +120,13 @@ def _gn_refine(K, T_cw, Xw, uv, weight, iters: int):
         H = jnp.sum(jnp.swapaxes(J, -1, -2) @ (J * w), axis=0)  # (6,6)
         g = jnp.sum(jnp.swapaxes(J, -1, -2) @ (r[..., None] * w), axis=0)[..., 0]  # (6,)
         H = H + 1e-6 * jnp.eye(6, dtype=H.dtype)
-        # unrolled Cholesky: jnp.linalg.solve lowers to a serialized LU
-        # custom-call on TPU (see ops/linalg.py)
+        # unrolled Cholesky in place of jnp.linalg.solve (see ops/linalg.py)
         delta = -linalg.cho_solve_unrolled(linalg.cholesky_unrolled(H), g)
         # Guard against divergent steps on degenerate systems.
         delta = jnp.where(jnp.all(jnp.isfinite(delta)), delta, jnp.zeros_like(delta))
         return se3.compose(se3.exp(delta), T)
 
-    # statically unrolled — a lax.scan trip's fixed overhead exceeds the
-    # (N,2,6) update math on TPU
+    # statically unrolled: a handful of small (N,2,6) updates
     T = T_cw
     for _ in range(iters):
         T = body(T)

@@ -1,6 +1,6 @@
 """SE(3) rigid transforms as (..., 4, 4) homogeneous matrices.
 
-TPU-native replacement for the reference's Sophus::SE3d usage
+Replacement for the reference's Sophus::SE3d usage
 (reference: include/frame.h:24, src/tracking.cpp:214-215): composition,
 inverse, and the exp/log maps needed for the Gauss-Newton / LM retraction in
 PnP refinement and bundle adjustment.

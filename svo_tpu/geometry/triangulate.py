@@ -1,6 +1,6 @@
 """Batched DLT triangulation with cheirality masking.
 
-TPU-native replacement for cv::triangulatePoints + convertPointsFromHomogeneous
+Replacement for cv::triangulatePoints + convertPointsFromHomogeneous
 + the z>0 cheirality filter (reference: src/tracking.cpp:120-152). The whole
 feature set is triangulated as one batched 4x4 eigenproblem; invalid/filtered
 points are masked, never compacted (static shapes under jit).

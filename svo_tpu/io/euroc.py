@@ -20,7 +20,6 @@ import csv
 import os
 
 import numpy as np
-import yaml
 
 
 # --------------------------------------------------------------------------
@@ -46,6 +45,8 @@ class PinholeRadtan:
 
 
 def load_sensor_yaml(path: str) -> PinholeRadtan:
+    import yaml
+
     with open(path) as f:
         data = yaml.safe_load(f)
     fu, fv, cu, cv = data["intrinsics"]

@@ -1,8 +1,8 @@
 """Dense FAST-9/16 corner detection.
 
-TPU-native replacement for cv::FastFeatureDetector (reference:
+Replacement for cv::FastFeatureDetector (reference:
 src/tracking.cpp:54-57, threshold=20, NMS on). Instead of the reference's
-per-pixel branchy ring test, the whole image is processed densely on the VPU:
+per-pixel branchy ring test, the whole image is processed densely:
 the 16-pixel Bresenham ring becomes 16 shifted copies of the image, the
 contiguous-arc test becomes 16 windowed ANDs, and the corner score is computed
 in closed form as the largest threshold at which the pixel remains a corner

@@ -1,31 +1,24 @@
 """Batched pyramidal Lucas-Kanade optical flow.
 
-TPU-native replacement for cv::calcOpticalFlowPyrLK at both reference call
+Replacement for cv::calcOpticalFlowPyrLK at both reference call
 sites: stereo left->right matching (src/tracking.cpp:98-105, 11x11 window,
 maxLevel 3, 30 iters, eps 1e-3) and temporal prev->curr tracking
 (src/tracking.cpp:157-164, 21x21, maxLevel 3, 50 iters, eps 1e-3,
 OPTFLOW_LK_GET_MIN_EIGENVALS -> min-eigenvalue rejection).
 
-TPU-first design (no per-pixel pointer chasing):
+Design (no per-pixel pointer chasing):
 - Per pyramid level, one rectangular PATCH per feature is extracted per
   image (template + its two gradients at the feature's integer corner;
-  current image at the flow-predicted corner). On TPU this is a PALLAS
-  kernel (ops/klt_pallas.py): the level image sits in VMEM, each feature's
-  rows are vector-loaded from a sublane-aligned corner and lane-rotated to
-  the exact x — XLA's alternative lowers vmapped dynamic_slice to a
-  sequential gather-expander while-loop over features, which round-1
-  profiling showed was ~70% of the whole frame step. On CPU (tests) the same
-  geometry runs as vmapped dynamic_slice.
+  current image at the flow-predicted corner) with a vmapped
+  dynamic_slice, which XLA emits as one gather.
 - All LK iterations then run DENSE inside these (N, PY, PX) arrays:
-  fractional sampling is a pair of one-hot blend contractions (pure
-  VPU mul-reduce work, no gathers in the inner loop).
+  fractional sampling is a pair of one-hot blend contractions, so the
+  inner loop has no gathers.
 - Template gradients and the 2x2 normal matrix G are computed once per level
   (cv2 does the same); each iteration only recomputes the image difference
-  and the right-hand side b. Iterations are STATICALLY UNROLLED with a
+  and the right-hand side b. Iterations run a fixed budget with a
   convergence mask (eps semantics preserved; converged features stop
-  moving — same result as cv2's early exit). A lax.while_loop here costs
-  ~0.5-1 ms of fixed overhead per trip on TPU, dwarfing the ~60us of VPU
-  work per update.
+  moving — same result as cv2's early exit).
 - Features whose window would leave the valid patch area or the image are
   marked lost, matching cv2's border behavior.
 
@@ -37,7 +30,6 @@ G's invertibility check).
 
 from __future__ import annotations
 
-import os
 from functools import partial
 from typing import NamedTuple
 
@@ -74,9 +66,9 @@ _MY = 6  # rows of upward iteration travel before the patch clamp binds
 
 
 def _patch_rows(window: int) -> int:
-    """Patch rows, rounded to the sublane tile (8). Budget: window + the
-    y margin + up to 7 rows of sublane alignment shift + 1 bilinear slack
-    + downward travel absorbed by the round-up."""
+    """Patch rows, rounded to 8. Budget: window + the y margin + up to 7
+    rows of corner alignment shift (see _corners) + 1 bilinear slack +
+    downward travel absorbed by the round-up."""
     return ((window + _MY + 9 + 7) // 8) * 8
 
 
@@ -96,42 +88,13 @@ def _level_rows(window: int, H: int) -> int:
 def _patch_cols(window: int, margin_x: int) -> int:
     """Patch cols: window + left margin (negative-x travel budget) + ~12 px
     of positive-x travel + bilinear slack, rounded to 8. x corners are
-    EXACT (the kernel lane-rolls), so no alignment allowance is needed."""
+    exact, so no alignment allowance is needed."""
     return ((window + margin_x + 13 + 7) // 8) * 8
 
 
-# Read once at import: the flag participates in no jit cache key, so reading
-# it at trace time made post-first-trace toggles silently ineffective for
-# already-cached shapes. Set SVO_TPU_NO_PALLAS before importing svo_tpu (the
-# bench A/B does this via a fresh subprocess).
-_NO_PALLAS = bool(os.environ.get("SVO_TPU_NO_PALLAS"))
-# Opt IN to the fused LK-level kernel (ops/lk_pallas.py). Default OFF on
-# measured throughput grounds: the 2-D row-folded formulation compiles and
-# tracks accurately on this chip (round 5: HBM operands + DMA staging) but
-# its 16% lane utilization makes it intrinsically ~3x slower than the
-# extraction-kernel + XLA blend path (docs/mosaic_limits.md #8).
-_FUSED_LK = bool(os.environ.get("SVO_TPU_FUSED_LK"))
-# Force the fused path IN INTERPRET MODE on CPU — CI-only knob for the
-# pipeline-level fused-vs-XLA trajectory agreement test
-# (tests/test_lk_fused_pipeline.py); never set in production.
-_FUSED_INTERP = bool(os.environ.get("SVO_TPU_FUSED_INTERPRET"))
-
-
-def _use_pallas(H: int, W: int, py: int) -> bool:
-    """Trace-time choice of the extraction engine for one pyramid level."""
-    if _NO_PALLAS:
-        return False
-    if jax.default_backend() in ("cpu", "gpu"):
-        return False
-    # the kernel reads 256 lanes from a 128-aligned corner: needs >= 2 tiles
-    return W > 128 and H >= py
-
-
 def _extract_patches_xla(img, corners, py: int, px: int):
-    """(N,2) i32 (y0, x0) corners -> (N,py,px) windows via dynamic_slice.
-
-    Same geometry as the Pallas kernel (corners pre-clamped/aligned by the
-    caller); used on CPU and for levels too small for the kernel."""
+    """(N,2) i32 (y0, x0) corners -> (N,py,px) windows via dynamic_slice
+    (corners pre-clamped/aligned by the caller, see _corners)."""
 
     def one(c):
         return jax.lax.dynamic_slice(img, (c[0], c[1]), (py, px))
@@ -142,10 +105,9 @@ def _extract_patches_xla(img, corners, py: int, px: int):
 def _corners(pos, guess, H: int, W: int, py: int, px: int, w: int, mx: int):
     """Integer patch corners for the template (at pos) and current (at
     pos+guess) patches: the WINDOW top-left minus a small margin (not the
-    patch center). y corners are additionally aligned DOWN to the sublane
-    tile (8) — the Pallas kernel's vector loads need provably aligned row
-    starts; the fractional offsets downstream account for the shift
-    exactly. x corners are exact (the kernel lane-rolls)."""
+    patch center). y corners are additionally aligned DOWN to a multiple of
+    8; _patch_rows budgets for that shift and the fractional offsets
+    downstream account for it exactly. x corners are exact."""
     hw = (w - 1) // 2  # integral for odd windows: floor(p - half) = floor(p) - hw
 
     def corner(p):
@@ -168,10 +130,9 @@ def _blend(patches, offset, window: int):
     patches. offset is (N, 2) (x, y) of the window's top-left relative to
     the patch's top-left; must be within [0, P* - window - 1].
 
-    TPU formulation: bilinear sampling as two one-hot blend contractions,
+    Bilinear sampling as two one-hot blend contractions,
     S_y @ patch @ S_x^T, where S_y[n, r, p] = (p == iy+r)(1-fy)
-    + (p == iy+r+1) fy. XLA lowers these to VPU multiply-reduce fusions —
-    a per-feature gather would serialize on TPU."""
+    + (p == iy+r+1) fy."""
     N, PY, PX = patches.shape
     w = window
     ox, oy = offset[:, 0], offset[:, 1]
@@ -231,8 +192,8 @@ def _track_impl(
     for level in range(max_level, -1, -1):
         # per-level iteration budget (KltParams.level_iters): levels above 0
         # start from a coarse-to-fine seed and converge in a handful of
-        # damped steps; the statically-unrolled extras were pure dispatch
-        # overhead. min() keeps caller overrides (the fb-check's 8) binding.
+        # damped steps. min() keeps caller overrides (the fb-check's 8)
+        # binding.
         if level_iters is not None:
             iters_l = min(
                 max_iters, level_iters[min(level, len(level_iters) - 1)]
@@ -259,54 +220,8 @@ def _track_impl(
         # feature anywhere inside the true image never hits the corner clamp
         p_pad = p_lvl + jnp.asarray([_PAD_X, _PAD_Y], p_lvl.dtype)
 
-        fused_ok = (
-            ((_use_pallas(H, W, py) and _FUSED_LK)
-             or (_FUSED_INTERP and W > 128 and H >= py))
-            and py >= w + 2 * _MY           # y-taps must stay in the band
-            and 64 >= w + 2 * margin_x + 1  # lk_pallas._PX tap budget
-        )
-        if fused_ok:
-            # --- fused LK level: extraction + template sampling + all
-            # iterations inside one Pallas kernel (ops/lk_pallas.py);
-            # outputs only flow + flags, no patch materialization. The
-            # kernel takes per-axis margins, so the stereo matcher's wide
-            # negative-x disparity budget (margin_x=16) runs fused too
-            # (ADVICE r03 resolved).
-            # NOTE positions of status=False features are unspecified here
-            # (the kernel freezes them at the guess; the XLA path keeps
-            # iterating) — consumers must mask by status. ---
-            from svo_tpu.ops.lk_pallas import lk_track_level
-
-            d, min_eig, solvable, in_fin = lk_track_level(
-                img_prev, gx, gy, img_curr, p_pad, guess, status,
-                window=w, py=py, max_iters=iters_l, eps=eps,
-                min_eig_threshold=min_eig_threshold,
-                margin_x=margin_x, margin_y=_MY,
-                interpret=_FUSED_INTERP,
-            )
-            status = status & solvable
-            min_eig_out = jnp.where(level == 0, min_eig, min_eig_out)
-            final_pt = p_lvl + d
-            inside_img = (
-                (final_pt[:, 0] >= 0)
-                & (final_pt[:, 0] < Wt)
-                & (final_pt[:, 1] >= 0)
-                & (final_pt[:, 1] < Ht)
-            )
-            status = status & inside_img & in_fin
-            guess = d
-            continue
-
         ty0, tx0, cy0, cx0 = _corners(p_pad, guess, H, W, py, px, w, margin_x)
-
-        if _use_pallas(H, W, py):
-            from svo_tpu.ops.klt_pallas import extract_klt_patches
-
-            t_patch, gx_patch, gy_patch, c_patch = extract_klt_patches(
-                img_prev, gx, gy, img_curr,
-                ty0, tx0, cy0, cx0, status, py=py, px=px,
-            )
-        else:
+        with jax.named_scope(f"klt_extract_L{level}"):
             tc = jnp.stack([ty0, tx0], -1)
             cc = jnp.stack([cy0, cx0], -1)
             t_patch = _extract_patches_xla(img_prev, tc, py, px)
@@ -354,12 +269,8 @@ def _track_impl(
         i12 = -a12 * inv_det
         i22 = a11 * inv_det
 
-        # ---- iterate: current window at p_lvl + d. STATICALLY UNROLLED on
-        # TPU (a loop trip's fixed overhead exceeds the update cost ~10x
-        # there); a fori_loop on CPU where trip overhead is negligible and
-        # unrolling only bloats compile time. Identical numerics either way:
-        # converged features are frozen by the mask, matching cv2's
-        # per-feature eps exit bit-for-bit. ----
+        # ---- iterate: current window at p_lvl + d. Converged features are
+        # frozen by the mask, matching cv2's per-feature eps exit. ----
         def lk_update(carry):
             d, conv = carry
             c_off = p_pad + d - half - c_base
@@ -388,15 +299,11 @@ def _track_impl(
             conv = conv | (du * du + dv * dv < eps2) | (~in_patch)
             return d, conv
 
-        carry = (guess, jnp.zeros((N,), bool))
-        if jax.default_backend() == "cpu":
-            carry = jax.lax.fori_loop(
-                0, iters_l, lambda _, c: lk_update(c), carry
+        with jax.named_scope(f"klt_lk_L{level}"):
+            d, _ = jax.lax.fori_loop(
+                0, iters_l, lambda _, c: lk_update(c),
+                (guess, jnp.zeros((N,), bool)),
             )
-        else:
-            for _ in range(iters_l):
-                carry = lk_update(carry)
-        d, _ = carry
 
         # lost if final window is outside patch (~left the search region) or
         # outside the TRUE image at this level
@@ -429,73 +336,6 @@ def _track_impl(
     )
     status = status & inside0
     return KltResult(pos=new_pos, status=status, err=min_eig_out)
-
-
-def patch_extraction_selftest(
-    img, n: int = 64, window: int = 21, seed: int = 0
-) -> float:
-    """A/B the Pallas patch kernel against the XLA dynamic_slice reference on
-    a REAL image and return the max |difference| (expected exactly 0.0).
-
-    Runs the same geometry the tracker uses at level 0: edge-padded image,
-    sublane-aligned y corners, exact x corners. On TPU the kernel runs
-    compiled; on CPU it runs in interpret mode on a lane-tile-padded copy
-    (reproducing the TPU physical layout). bench.py calls this on the live
-    chip so a divergence in the TPU path is caught by a number, not by
-    downstream ATE drift."""
-    import numpy as np
-
-    from svo_tpu.ops.klt_pallas import extract_klt_patches
-
-    img = jnp.asarray(img, jnp.float32)
-    img_p = jnp.pad(img, ((_PAD_Y, _PAD_Y), (_PAD_X, _PAD_X)), mode="edge")
-    gx, gy = scharr_gradients(img_p)
-    H, W = img_p.shape
-    py, px = _level_rows(window, H), _patch_cols(window, 6)
-    if py == 0 or W < px + 1:
-        raise ValueError(f"image too small for the self-test: {img.shape}")
-
-    rng = np.random.default_rng(seed)
-    pos = np.stack(
-        [
-            rng.uniform(0, W - 1, n).astype(np.float32),
-            rng.uniform(0, H - 1, n).astype(np.float32),
-        ],
-        axis=-1,
-    )
-    guess = rng.uniform(-3, 3, (n, 2)).astype(np.float32)
-    ty0, tx0, cy0, cx0 = _corners(
-        jnp.asarray(pos), jnp.asarray(guess), H, W, py, px, window, 6
-    )
-    valid = jnp.ones((n,), bool)
-
-    interpret = jax.default_backend() in ("cpu", "gpu")
-    if interpret:
-        wt = ((W + 127) // 128) * 128
-        pad_w = wt - W
-        garbage = jnp.asarray(
-            rng.uniform(-1e4, 1e4, (H, pad_w)).astype(np.float32)
-        )
-        imgs_k = [
-            jnp.concatenate([a, garbage], axis=1)
-            for a in (img_p, gx, gy, img_p)
-        ]
-    else:
-        imgs_k = [img_p, gx, gy, img_p]
-    got = extract_klt_patches(
-        *imgs_k, ty0, tx0, cy0, cx0, valid, py=py, px=px, interpret=interpret
-    )
-    tc = jnp.stack([ty0, tx0], -1)
-    cc = jnp.stack([cy0, cx0], -1)
-    want = [
-        _extract_patches_xla(img_p, tc, py, px),
-        _extract_patches_xla(gx, tc, py, px),
-        _extract_patches_xla(gy, tc, py, px),
-        _extract_patches_xla(img_p, cc, py, px),
-    ]
-    return float(
-        max(jnp.max(jnp.abs(g - w)) for g, w in zip(got, want))
-    )
 
 
 class KltTracker:

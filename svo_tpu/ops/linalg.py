@@ -1,10 +1,9 @@
-"""TPU-friendly small-matrix linear algebra.
+"""Small-matrix linear algebra in closed or fixed-iteration form.
 
-XLA's eigh/svd lower to iterative Jacobi/QR sweeps that serialize badly on
-TPU; for the tiny batched systems this pipeline needs (3x3/4x4 inverses,
+For the tiny batched systems this pipeline needs (3x3/4x4 inverses,
 smallest eigenvectors of 4x4/12x12 normal matrices, SO(3) projection) the
-closed-form / fixed-iteration formulations below are orders of magnitude
-faster and fully fused by XLA.
+formulations below are plain elementwise arithmetic that XLA fuses, instead
+of the library solvers' iterative sweeps or custom calls.
 """
 
 from __future__ import annotations
@@ -58,8 +57,7 @@ def polar3x3(M: jnp.ndarray, iters: int = 8) -> jnp.ndarray:
     sign = jnp.where(det < 0, -1.0, 1.0)
     X = M * sign[..., None, None]
 
-    # statically unrolled: each update is a handful of fused VPU ops, while
-    # a lax.scan trip carries fixed loop overhead that dwarfs them on TPU
+    # statically unrolled: each update is a handful of fused elementwise ops
     for _ in range(iters):
         Xinv_T = jnp.swapaxes(inv3x3(X), -1, -2)
         # scale for fast convergence: s = sqrt(|X^-1| / |X|) (Frobenius)
@@ -73,10 +71,9 @@ def polar3x3(M: jnp.ndarray, iters: int = 8) -> jnp.ndarray:
 def cholesky_unrolled(B: jnp.ndarray) -> jnp.ndarray:
     """Batched Cholesky of small PD (..., n, n) matrices, fully unrolled.
 
-    XLA lowers jnp.linalg.inv / cholesky on TPU to an LU/loop custom-call
-    that serializes per batch element (~3 ms per frame step for the PnP
-    hypothesis batch); n<=12 unrolled column steps are a few hundred fused
-    VPU ops instead. No pivoting — callers pass shifted PD matrices."""
+    n<=12 unrolled column steps are a few hundred fused elementwise ops, in
+    place of the library factorization's per-matrix custom call. No
+    pivoting — callers pass shifted PD matrices."""
     n = B.shape[-1]
     L = jnp.zeros_like(B)
     for j in range(n):
@@ -122,10 +119,9 @@ def smallest_eigvec_psd(
     """Eigenvector of the smallest eigenvalue of a symmetric PSD (..., n, n)
     matrix via inverse iteration: x <- (A + shift*tr(A)/n*I)^-1 x, normalized.
 
-    The shifted matrix is factored once with the unrolled Cholesky (pure
-    fused VPU work — jnp.linalg.inv would lower to a serialized per-batch
-    LU custom-call on TPU); each iteration is then two unrolled triangular
-    solves. Replaces eigh on the RANSAC/DLT hot path."""
+    The shifted matrix is factored once with the unrolled Cholesky (fused
+    elementwise work in place of jnp.linalg.inv's per-matrix LU); each
+    iteration is then two unrolled triangular solves. Replaces eigh on the RANSAC/DLT hot path."""
     n = A.shape[-1]
     tr = jnp.trace(A, axis1=-2, axis2=-1)[..., None, None] / n
     B = A + (shift * tr + 1e-12) * jnp.eye(n, dtype=A.dtype)

@@ -7,10 +7,9 @@ Two pyramid flavors, matching the reference's two consumers:
 - Detection pyramid: geometric rescale chain (factor 1.2) for the ORB-style
   multi-scale detector (reference: src/tracking.cpp:42-52).
 
-TPU note: XLA convolutions on single-channel images waste the MXU (channel
-dim 1) and measure ~25ms for a 4-level pyramid; every filter here is instead
-expressed as shifted adds (pure VPU elementwise work over the full image),
-which XLA fuses into a handful of bandwidth-bound passes.
+Every filter here is expressed as shifted adds over the full image, which
+XLA fuses into a handful of bandwidth-bound passes, instead of a
+single-channel convolution.
 """
 
 from __future__ import annotations
@@ -90,10 +89,9 @@ def pyr_down(img: jnp.ndarray) -> jnp.ndarray:
     """cv2-style pyrDown: 5x5 Gaussian blur then take every 2nd pixel.
     Output shape: ceil(H/2) x ceil(W/2).
 
-    TPU formulation: blur+decimate per axis as one banded MXU matmul.
-    A lane-dimension stride-2 slice breaks the (8,128) tiling and XLA lowers
-    it to a full-image gather (~800us/image at 8 streams, measured); the
-    dense banded matmul is ~10x cheaper and rides the systolic array."""
+    Blur+decimate per axis as one banded matmul (a stride-2 slice after a
+    separate blur is the plain alternative; on the GPU the two have not been
+    compared)."""
     h, w = img.shape[-2:]
     Dh = jnp.asarray(_decim_matrix(h))   # (h2, h)
     Dw = jnp.asarray(_decim_matrix(w))   # (w2, w)
@@ -126,8 +124,7 @@ def _resize_matrix(n_in: int, n_out: int):
 
 
 def resize_linear(img: jnp.ndarray, nh: int, nw: int) -> jnp.ndarray:
-    """Bilinear resize as two MXU matmuls (TPU: gather-based resize is slow;
-    a dense interpolation matrix rides the systolic array for free)."""
+    """Bilinear resize as two matmuls with dense interpolation matrices."""
     h, w = img.shape
     Mh = _resize_matrix(h, nh)  # (h, nh)
     Mw = _resize_matrix(w, nw)  # (w, nw)

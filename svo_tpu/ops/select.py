@@ -10,7 +10,7 @@ src/tracking.cpp:88) with its two latent bugs fixed by construction:
   (src/bucket.cpp:84-93): here per-cell preference is an explicit top-k on a
   priority key.
 
-TPU formulation: pad the score map to a multiple of the cell size, reshape to
+Formulation: pad the score map to a multiple of the cell size, reshape to
 (cells, cell_pixels), run top-k per cell (a dense segment-max), then a global
 top-k over cell winners. Static output shape (max_out slots + validity mask).
 """
@@ -24,11 +24,9 @@ import jax.numpy as jnp
 def _topk_rounds(cells: jnp.ndarray, k: int) -> tuple[jnp.ndarray, jnp.ndarray]:
     """top-k per row via k max+mask rounds.
 
-    XLA lowers lax.top_k to a FULL SORT of every row — ~1.9 ms for the
-    (cells, cell_pixels) table at 8 streams (measured; it was the single
-    most expensive op of a keyframe step). For k << P, k rounds of
-    (row-max, first-argmax, mask-out) are pure VPU reductions, ~15x
-    cheaper. Tie order matches lax.top_k (first index wins).
+    For k << P, k rounds of (row-max, first-argmax, mask-out) are plain
+    reductions, an alternative to lax.top_k that on the GPU has not been
+    compared with it. Tie order matches lax.top_k (first index wins).
 
     Contract difference vs lax.top_k for EXHAUSTED rows (fewer than k
     entries above -inf): once a row runs out, every remaining round

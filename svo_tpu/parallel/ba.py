@@ -1,12 +1,12 @@
 """Distributed bundle adjustment over a device mesh.
 
 The reference has no distributed execution of any kind (SURVEY.md §2.3); this
-is the TPU-native design BASELINE.json's config #5 asks for: the map is
+is the design BASELINE.json's config #5 asks for: the map is
 partitioned into keyframe blocks, each device owns one block's points and ALL
 observations of those points (observations sharded by owning point, cameras
 replicated). Per LM iteration the only cross-device traffic is the
 psum-reduction of the Schur-reduced camera system — a (K,K,6,6) block + a
-(K,6) rhs + a scalar cost — which XLA lowers to all-reduces over ICI. Point
+(K,6) rhs + a scalar cost — which XLA lowers to all-reduces (NCCL on GPUs). Point
 marginalization and back-substitution never leave the owning device.
 
 Multi-host: the same code runs under jax.distributed with a global mesh; the

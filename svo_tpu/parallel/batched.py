@@ -1,11 +1,11 @@
 """Single-chip multi-stream VO: vmap the whole frame step over S streams.
 
 The VO frame loop is latency-bound (SURVEY.md §7 hard-part #4): one stream
-leaves the chip idle between tiny kernels. The TPU answer to throughput is
+leaves the device idle between tiny kernels. The answer to throughput is
 batching, not threads — `jax.vmap` of the full per-frame step over S
 independent sequences turns every per-feature op into an (S*N)-row op (the
 KLT normal equations, bilinear-blend matmuls, PnP hypothesis scoring all get
-wider and fill the VPU/MXU), while `lax.scan` over a chunk of frames
+wider and fill the device), while `lax.scan` over a chunk of frames
 amortizes dispatch. This is the one-chip analogue of parallel/multi_seq.py
 (which gives each device of a mesh its own stream); production serving runs
 batched streams per chip x streams per device mesh-wide.
@@ -177,14 +177,12 @@ class BatchedStereoVO:
                 ba_iterations=ba_iterations, pg_iterations=pg_iterations,
             )
 
-        # lax.map, not vmap (round-5): under vmap the refine's
-        # lax.cond(aggressive) lowers to both-branches+select, so every
-        # stream pays the block-BA recovery machinery on every sweep even
-        # when all spans are healthy. lax.map runs the streams sequentially
-        # and each stream's cond actually SKIPS the aggressive branch — at
-        # 8 streams the conservative-only sweep is cheap enough that the
-        # sequential map beats the batched both-branch program (measured in
-        # BENCH agg_fps_with_refine). SVO_TPU_REFINE_VMAP=1 restores vmap.
+        # lax.map, not vmap: under vmap the refine's lax.cond(aggressive)
+        # lowers to both-branches+select, so every stream pays the block-BA
+        # recovery machinery on every sweep even when all spans are
+        # healthy. lax.map runs the streams sequentially and each stream's
+        # cond actually SKIPS the aggressive branch. SVO_TPU_REFINE_VMAP=1
+        # restores vmap.
         import os as _os
 
         _mapper = (

@@ -205,8 +205,7 @@ def step_body(
 
     The cadenced chunk step (make_cadenced_chunk_step) composes "always" and
     "never" steps on a fixed keyframe cadence, turning the data-dependent
-    branch into program structure — the TPU-native answer to a conditional
-    pipeline stage.
+    branch into program structure.
     """
     assert kf_mode in ("dynamic", "never", "always")
     fid = state.frame_id + 1
@@ -520,8 +519,8 @@ def make_step(camera: Camera, cfg: Config):
 def make_chunked_step(camera: Camera, cfg: Config, chunk: int):
     """Jitted multi-frame step: lax.scan of the frame step over a chunk of
     `chunk` stereo pairs shipped as uint8 (4x less host->device traffic),
-    amortizing per-dispatch latency — the TPU answer to SURVEY.md §7
-    hard-part #4 (sequential frame dependency vs device throughput).
+    amortizing per-dispatch latency (SURVEY.md §7 hard-part #4: sequential
+    frame dependency vs device throughput).
 
     Uses the dynamic (data-dependent) keyframe rule; prefer
     make_cadenced_chunk_step for throughput (the lax.cond in the scan body
@@ -553,7 +552,7 @@ def make_cadenced_chunk_step(
     """Jitted multi-frame step with a STATIC keyframe cadence.
 
     The reference's keyframe rule is data-dependent (src/tracking.cpp:69-71),
-    which on TPU forces a lax.cond around the replenish stage — and under
+    which on device forces a lax.cond around the replenish stage — and under
     vmap (multi-stream batching) a cond lowers to both-branches + select, so
     every stream pays dense detection + stereo KLT + triangulation on EVERY
     frame. This builder instead fixes the keyframe schedule at trace time:
@@ -592,17 +591,6 @@ def make_cadenced_chunk_step(
         kf_step = jax.vmap(kf_step)
         track_step = jax.vmap(track_step)
 
-    import os
-
-    # Outer scan is the default: the round-2 Pallas + nested-scan TPU
-    # runtime fault (commit fe957ee) no longer reproduces on the current
-    # jax/libtpu — verified by scripts/repro_nested_scan.py AND by the full
-    # pipeline producing bit-identical trajectories vs the unrolled path at
-    # identical throughput (scripts/time_chunk.py, 8 streams). The Python
-    # unroll is kept as a fallback (SVO_TPU_UNROLL_GROUPS=1); the nested
-    # program is O(1) in chunk/cadence and compiles ~2x faster.
-    nested = not bool(os.environ.get("SVO_TPU_UNROLL_GROUPS"))
-
     @partial(jax.jit, donate_argnums=(0,))
     def run_chunk(
         state: VoState, lefts_u8: jnp.ndarray, rights_u8: jnp.ndarray
@@ -610,34 +598,19 @@ def make_cadenced_chunk_step(
         def tbody(s, xy):
             return track_step(s, xy[0], xy[1]), None
 
-        if nested and cadence > 1:
-            # Outer lax.scan over cadence groups: O(1) program size in
-            # chunk/cadence (compiles ~linearly faster for long chunks).
-            lg = lefts_u8.reshape((groups, cadence) + lefts_u8.shape[1:])
-            rg = rights_u8.reshape((groups, cadence) + rights_u8.shape[1:])
+        # Outer lax.scan over cadence groups: the program size is O(1) in
+        # chunk/cadence.
+        lg = lefts_u8.reshape((groups, cadence) + lefts_u8.shape[1:])
+        rg = rights_u8.reshape((groups, cadence) + rights_u8.shape[1:])
 
-            def group_body(s, xy):
-                gl, gr = xy
-                s = kf_step(s, gl[0], gr[0])
-                s, _ = jax.lax.scan(tbody, s, (gl[1:], gr[1:]))
-                return s, None
-
-            state, _ = jax.lax.scan(group_body, state, (lg, rg))
-            return state
-
-        # Groups UNROLLED in Python (there are only chunk/cadence of them):
-        # the round-2-safe structure; with chunk == cadence there is no
-        # outer loop at all.
-        for g in range(groups):
-            state = kf_step(state, lefts_u8[g * cadence], rights_u8[g * cadence])
+        def group_body(s, xy):
+            gl, gr = xy
+            s = kf_step(s, gl[0], gr[0])
             if cadence > 1:
-                state, _ = jax.lax.scan(
-                    tbody, state,
-                    (
-                        lefts_u8[g * cadence + 1 : (g + 1) * cadence],
-                        rights_u8[g * cadence + 1 : (g + 1) * cadence],
-                    ),
-                )
+                s, _ = jax.lax.scan(tbody, s, (gl[1:], gr[1:]))
+            return s, None
+
+        state, _ = jax.lax.scan(group_body, state, (lg, rg))
         return state
 
     return run_chunk

@@ -37,7 +37,7 @@ class RunResult:
 
 
 class StereoVO:
-    """TPU-native stereo visual odometry engine (the Tracking+Map pair of the
+    """Stereo visual odometry engine (the Tracking+Map pair of the
     reference, as one functional pipeline)."""
 
     def __init__(

@@ -61,9 +61,8 @@ class MapState(NamedTuple):
     # Stored as THREE 1-D rings rather than one (O,3) array: the ring is a
     # scan carry updated by scatter every frame, and XLA assigns an (O,3)
     # array a scatter-friendly layout that differs from the carry layout —
-    # costing two full-ring transpose copies per frame step (~2 ms/step at
-    # 8 streams, measured). 1-D scatters update in place in the native
-    # layout. The BA problem side still assembles an (O,3) obs_uv at window
+    # costing two full-ring transpose copies per frame step. 1-D scatters
+    # update in place in the native layout. The BA problem side still assembles an (O,3) obs_uv at window
     # extraction time (rare), see ba/window.py.
     obs_u: jnp.ndarray     # (O,) f32 u_left
     obs_v: jnp.ndarray     # (O,) f32 v_left

@@ -1,6 +1,6 @@
 """ctypes bindings for the native async stereo prefetcher (native/loader.cpp).
 
-The TPU-native replacement for the reference's AsyncImageLoader producer
+The replacement for the reference's AsyncImageLoader producer
 thread + SPSC queue (reference: include/async_image_loader.h:18-80): N C++
 decoder threads keep a bounded ordered ring of decoded grayscale frames ahead
 of the consumer, so the host's Python loop only ever memcpy's ready frames

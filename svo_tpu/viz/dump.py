@@ -1,7 +1,7 @@
 """Headless visualization artifacts.
 
 The reference renders live via Pangolin + OpenCV windows (reference:
-src/drawer.cpp, src/utils.cpp:19-28) — not an option on a TPU host. The
+src/drawer.cpp, src/utils.cpp:19-28) — not an option on a headless accelerator host. The
 equivalents here are offline artifacts: trajectory files (KITTI poses
 format, plottable and eval-able), PLY point clouds of the map, and a
 matplotlib top-down trajectory plot.

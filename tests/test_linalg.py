@@ -1,4 +1,4 @@
-"""TPU-friendly small linear algebra vs numpy oracles."""
+"""Closed-form small linear algebra vs numpy oracles."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -3,7 +3,7 @@ checkpoint/resume equivalence (VERDICT round-2 items 5 / §5 failure
 recovery).
 
 The full KITTI-scale soak (2000+ frames, capacity high-water marks) runs on
-TPU via scripts/soak.py; these tests force the same lifecycle events at CPU
+the accelerator via scripts/soak.py; these tests force the same lifecycle events at CPU
 scale — a deliberately tiny observation ring that wraps several times, and a
 mid-run checkpoint restored into a FRESH engine instance (fresh jit
 closures, the in-process equivalent of a new process) that must continue
